@@ -1,17 +1,17 @@
-"""dip_admm_tpu — TPU-native decentralized consensus-ADMM framework for
+"""dip_admm_tpu — decentralized consensus-ADMM framework in JAX for
 TV-regularized least-squares tomographic inverse problems.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 prsinha1/Distributed-Inverse-Problem-Admm (see SURVEY.md):
 
 - ``ops``      : Radon projectors (dense + matrix-free), TV operators/prox,
-                 batched linear algebra (CG, power method), Pallas kernels.
+                 batched linear algebra (CG, power method).
 - ``graph``    : per-pixel communication graphs (knn / mst / chain) and
                  precision weights W_i / Q_ij (harmonic & arithmetic means).
 - ``core``     : the consensus ADMM runtime — vmapped inexact node solver
                  (Condat-Vu primal-dual) and the jitted edge-consensus loop.
 - ``parallel`` : device mesh + shard_map collectives (all_to_all dual
-                 exchange, psum residual reduction) for multi-chip/multi-host.
+                 exchange, psum residual reduction) for multi-device/multi-host.
 - ``solvers``  : alternative solver families — PDHG penalized-consensus,
                  centralized aggregate baseline, node/edge-objective graph API.
 - ``data``     : problem construction (phantoms, operators, sinograms) and
@@ -20,44 +20,41 @@ prsinha1/Distributed-Inverse-Problem-Admm (see SURVEY.md):
 
 The reference executes its "distributed" graph sequentially in one Python
 process; here the node axis is sharded over a ``jax.sharding.Mesh`` and edge
-consensus is a masked pairwise-average collective over ICI.
+consensus is a masked pairwise-average collective between devices.
 """
+
+import os
 
 __version__ = "0.1.0"
 
+# Fixed in-checkout location of the persistent compilation cache: the path is
+# part of what a later process must find again, so it never moves.
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def compilation_cache_dir(environ=os.environ):
+    """Directory this package points JAX's persistent compilation cache at,
+    or None to set nothing: JAX reads ``JAX_COMPILATION_CACHE_DIR`` itself
+    when it is set, and ``DIP_ADMM_NO_XLA_CACHE`` opts out (the CPU test
+    suite). Otherwise ``<checkout>/.jax_cache``."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR") or environ.get(
+        "DIP_ADMM_NO_XLA_CACHE"
+    ):
+        return None
+    return CACHE_DIR
+
 
 def _enable_compilation_cache() -> None:
-    """Persistent XLA compilation cache, on by default.
+    """Problem construction compiles several independent programs (tables,
+    forward, colnorms, graph, opnorms); the persistent cache lets every
+    process after the first skip them."""
+    path = compilation_cache_dir()
+    if path is not None:
+        import jax
 
-    Problem construction compiles ~6 independent programs (tables, forward,
-    colnorms, graph, opnorms); on this class of host the compiles dominate
-    build time (measured 33 s of a 256^2/8 build, vs ~5 s of device work).
-    The persistent cache makes every process after the first skip them
-    (measured 14.3 s -> 1.2 s on a representative compile through the TPU
-    backend). Opt out with DIP_ADMM_NO_XLA_CACHE=1; relocate with
-    DIP_ADMM_XLA_CACHE=<dir>. A user-configured jax cache dir wins.
-    """
-    import os
-
-    if os.environ.get("DIP_ADMM_NO_XLA_CACHE"):
-        return
-    import jax
-
-    if jax.config.jax_compilation_cache_dir:
-        return  # already configured by the user/environment
-    path = os.environ.get(
-        "DIP_ADMM_XLA_CACHE",
-        os.path.join(
-            os.path.expanduser("~"), ".cache", "dip_admm_tpu", "xla"
-        ),
-    )
-    try:
-        os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)
-        # Default min_compile_time (1 s) skips trivial kernels; entries are
-        # keyed on backend+flags so CPU tests and TPU runs coexist.
-    except (OSError, AttributeError):
-        pass  # unwritable home / very old jax: run without the cache
 
 
 _enable_compilation_cache()

@@ -32,7 +32,7 @@ class GeometryConfig:
     angles_total: Optional[int] = None  # default: max(180, 3N)
     det_pixels: Optional[int] = None  # default: N
     det_width_factor: float = 1.0
-    fan_beam: bool = False  # fan-beam geometry (BASELINE.json config 5)
+    fan_beam: bool = False  # fan-beam geometry (config 5: 512^2, 32 nodes)
     src_radius: float = 4.0  # fan-beam only: source distance from center
     det_radius: float = 4.0  # fan-beam only: detector distance from center
 
@@ -111,7 +111,7 @@ class NodeSolverConfig:
     # DATA-SCALE-RELATIVE inexactness: widen the acceptance target to
     # eps_k = max(eps0, eps_rel * ||A_i^T b_i||) / (k+1)^(1+gamma) per node.
     # The reference's absolute eps0 was tuned at 64^2 and is unreachable at
-    # 256^2+ (RESULTS.md: acceptance never fires, the budget rules);
+    # 256^2+ (acceptance never fires there, the budget rules);
     # anchoring at the per-node data scale makes the adaptive schedule fire
     # at every problem size. 0 disables (reference-parity default).
     eps_rel: float = 0.0
@@ -131,14 +131,6 @@ class AdmmConfig:
     # the z/y updates; 1.0 = reference algorithm, 1.5-1.8 typically speeds
     # consensus convergence.
     relax_alpha: float = 1.0
-    # Run the fused z/y/residual edge update as the Pallas TPU kernel
-    # (ops/pallas/consensus.py): one HBM pass over the [P_loc, P, n] edge
-    # state instead of the ~6 XLA temporaries. Numerics identical; pays off
-    # as the edge-state footprint grows (measured 3.43 vs 4.28 ms at
-    # 8 nodes/256^2, RESULTS.md). None = auto: on when running on TPU with
-    # >= 8 graph nodes, off otherwise (off-TPU the kernel would run in the
-    # slow interpreter; below 8 nodes the XLA chain is already cheap).
-    use_pallas: Optional[bool] = None
     # Residual balancing (Boyd sec. 3.4.1): after each outer iteration,
     # rho *= rho_tau when ||r|| > rho_mu*||s||, rho /= rho_tau when
     # ||s|| > rho_mu*||r||, with the scaled duals Y rescaled by the inverse
@@ -146,17 +138,17 @@ class AdmmConfig:
     # this config's rho, clamped to [1/rho_clamp, rho_clamp]. Off by
     # default (reference parity — the reference runs fixed rho,
     # block_6_admm_loop_ver2.py:19); the knob that classically attacks a
-    # stalled dual residual (BASELINE config 5's spectral-gap-limited
-    # consensus, RESULTS.md round-4 characterization).
+    # stalled dual residual (the spectral-gap-limited consensus of the
+    # 32-node fan configuration).
     adapt_rho: bool = False
     rho_mu: float = 10.0
     rho_tau: float = 2.0
     rho_clamp: float = 64.0
     # Adaptation policy. "balance" = the classical residual-ratio scheme
-    # above. "stall" = quality-signal variant (RESULTS.md round-5 config-5
-    # study): in the spectral-gap-limited many-node regime the DUAL residual
-    # dominates, so balancing can only LOWER rho — yet the measured quality
-    # lever there is HIGH rho (static rho=20 bought +4 dB). "stall" instead
+    # above. "stall" = quality-signal variant (from a study of the 32-node
+    # fan configuration): in the spectral-gap-limited many-node regime the
+    # DUAL residual dominates, so balancing can only LOWER rho — yet the
+    # measured quality lever there is HIGH rho (static rho=20 bought +4 dB). "stall" instead
     # raises rho by rho_tau whenever the primal residual has failed to
     # improve by rho_stall_tol (relative) over the last rho_stall_window
     # outer iterations (checked at that cadence, never lowered) — the

@@ -95,9 +95,9 @@ def build_fourier_precond(
     *approximate* H for speed; the spectral bound keeps it convergent even
     where it misfits (image boundary, masked pixels, fan-beam rebin).
     Lanczos (eigh of the [n_lanczos]^2 tridiagonal, in-jit) resolves the
-    near-degenerate top cluster that made the round-4 power method creep
-    ~13% between 12 and 120 iterations and forced a 0.7 safety margin
-    (VERDICT r4 #2); the margin is now 0.95.
+    near-degenerate top cluster that made a power-method estimate creep
+    ~13% between 12 and 120 iterations and forced a 0.7 safety margin;
+    the margin is now 0.95.
     """
     P, n = D_vec.shape
     dtype = D_vec.dtype
@@ -123,7 +123,7 @@ def build_fourier_precond(
     scale = rho * d_mean
     # rho=0 fallback measured on the centralized TV path: the TV dual is
     # the convergence bottleneck there, and PSNR-at-budget rises
-    # monotonically with sigma through ~4*max(m_hat) (RESULTS r4 sweep);
+    # monotonically with sigma through ~4*max(m_hat) (a sigma sweep);
     # sigma also enters the metric below, so larger values stay certified.
     scale = jnp.where(
         scale > 0, scale, 4.0 * jnp.max(m_hat_A, axis=(1, 2))
@@ -176,7 +176,7 @@ def build_fourier_precond(
     # then lambda_max(G) ~ the top Ritz value of the [k, k] tridiagonal
     # (eigh in-jit; batched over nodes). Krylov top-eigenvalue convergence
     # is quadratically faster than power iteration and handles clustered
-    # tops, where the round-4 power estimate stalled. Ritz values
+    # tops, where a power estimate stalls. Ritz values
     # UNDERestimate lambda_max in exact arithmetic, so the margin below
     # stays < 1. Deterministic shared start vector — a [P, n] draw would
     # make the certified step depend on how the node batch is sliced
@@ -259,7 +259,7 @@ def init_state(P: int, N: int, m: int, dtype=jnp.float32) -> NodeState:
         # inf = "fresh" sentinel: fcv takes min(tk, certified step), so a
         # fresh state maps to the FULL certified step (which can exceed 1 —
         # lam_max ~ 0.5-0.7 gives step ~ 1-1.4; a ones sentinel used to clip
-        # it, ADVICE r4). fista overwrites tk with ones at solve start.
+        # it). fista overwrites tk with ones at solve start.
         tk=jnp.full((P,), jnp.inf, dtype),
     )
 
@@ -323,7 +323,7 @@ def solve_nodes(
     elif cfg.algorithm == "fcv":
         # Circulant-metric Condat-Vu: the gradient step runs in the Fourier
         # metric T = s * M^-1 built by ``build_fourier_precond`` (the
-        # near-shift-invariance of A^T A for CT nodes — VERDICT r3 #1).
+        # near-shift-invariance of A^T A for CT nodes).
         # Identical fixed-point and acceptance semantics to cv; only the
         # metric (and therefore the iteration count) changes.
         if fprecond is None:
@@ -444,8 +444,8 @@ def solve_nodes(
         # a solve), so ``fista_prox_iters`` dual iterations per step suffice.
         # O'Donoghue-Candes gradient restart per node keeps momentum from
         # overshooting: when (y - x+)'(x+ - x) > 0 the t-sequence resets.
-        # Promoted from the test-only oracle (tests/test_node_solver.py) per
-        # NEXT.md #5; the same accelerated scheme SCS's quadratic cone solves
+        # Promoted from the test-only oracle (tests/test_node_solver.py);
+        # the same accelerated scheme SCS's quadratic cone solves
         # play against in the reference (block_6_admm_loop_ver2.py:123).
         tau = (0.99 / L).astype(dtype)  # [P]
         tau_c = tau[:, None]

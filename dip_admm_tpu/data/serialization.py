@@ -135,7 +135,7 @@ def save_problem(problem: Problem, path: str, include_tables: bool = True) -> No
 
 
 def _backfill_tap_layout(tables: dict) -> None:
-    """Problem bundles saved before round 5 carry only the t-major tap
+    """Older problem bundles carry only the t-major tap
     table ``Wt``; the skew kernels now read the d-major ``WtT``. Derive it
     in place (both the parallel-beam top level and the fan ``shared.par``
     nesting). Only called for mode="fft_skew" bundles — fft_shear bundles

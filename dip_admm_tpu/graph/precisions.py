@@ -39,8 +39,8 @@ def weights_from_dense(A: jnp.ndarray, row_valid: jnp.ndarray | None = None):
 def pairwise_q(W: jnp.ndarray, q_mode: str = "arithmetic") -> jnp.ndarray:
     """Q [P, P, n] from W [P, n]; diagonal zeroed.
 
-    jit: eagerly these ~6 elementwise ops on the [P, P, n] tensor each pay a
-    relay round trip (measured 5.4 s of the 256^2/8 build)."""
+    jit: one fused program instead of ~6 eager elementwise dispatches over the
+    [P, P, n] tensor."""
     Wi = W[:, None, :]
     Wj = W[None, :, :]
     if q_mode == "harmonic":

@@ -10,6 +10,7 @@ small/Gram-mode problems.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import jax
@@ -92,5 +93,6 @@ def ridge_solve(A: jnp.ndarray, b: jnp.ndarray, lam: float) -> jnp.ndarray:
     """x = (A^T A + lam I)^{-1} A^T b — the reference's aggregate ridge
     baseline (``/root/reference/block_2_test.py:83-88``)."""
     n = A.shape[1]
-    gram = A.T @ A + lam * jnp.eye(n, dtype=A.dtype)
-    return solve_spd(gram, A.T @ b)
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    gram = mm(A.T, A) + lam * jnp.eye(n, dtype=A.dtype)
+    return solve_spd(gram, mm(A.T, b))

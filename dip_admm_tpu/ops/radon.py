@@ -92,7 +92,7 @@ def parallel_rays(
 def fan_rays(
     angles: jnp.ndarray, dets: jnp.ndarray, src_radius: float, det_radius: float
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Flat-detector fan-beam rays (BASELINE.json config 5 geometry).
+    """Flat-detector fan-beam rays (config 5 geometry: 512^2, 32 nodes).
 
     Source at -src_radius along the angle axis, flat detector at +det_radius
     orthogonal to it; ``dets`` are positions along the detector line.

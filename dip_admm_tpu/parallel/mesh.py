@@ -3,8 +3,8 @@
 The reference has no communication backend at all — its "distributed" nodes
 are entries of Python dicts in one process (SURVEY §2.2). Here graph nodes
 are sharded over a ``jax.sharding.Mesh`` axis ``"node"``; on multi-host
-systems the same axis simply spans hosts (collectives ride ICI within a host
-and DCN across hosts — XLA picks the transport from the mesh).
+systems the same axis simply spans hosts (collectives ride NVLink within a
+host and the network across hosts — XLA picks the transport from the mesh).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from jax.sharding import Mesh, PartitionSpec as PS
 
 NODE_AXIS = "node"
 # Optional second mesh axis sharding the [P_loc, P, n] edge state (Z/Y/Q)
-# along the pixel dim — the HBM ceiling once the node axis is exhausted
+# along the pixel dim — the memory ceiling once the node axis is exhausted
 # (per-pixel consensus is embarrassingly parallel; node solves keep full
 # images and replicate along this axis).
 PIXEL_AXIS = "pixel"
@@ -28,11 +28,12 @@ def table_partition_specs(tables, num_nodes: int):
     (``multihost.distribute_problem``), so the two can never disagree.
 
     Rule: every leaf under a ``"shared"`` subtree is node-shared geometry
-    (fft_shear's Phi twiddles, the fan path's single-set parallel tables and
-    rebin/DFT filters) and replicates; everything else is per-node and
-    shards by its leading node axis. The subtree marker exists because a
-    shared leaf's leading dim can coincide with the node count (e.g. Phi
-    [16, F] on a 16-node graph) — a shape heuristic alone would shard it."""
+    (fft_skew's DFT-back and tail twiddles, the fan path's single-set
+    parallel tables and rebin/DFT filters) and replicates; everything else
+    is per-node and shards by its leading node axis. The subtree marker
+    exists because a shared leaf's leading dim can coincide with the node
+    count (e.g. PhiD [16, F] on a 16-node graph) — a shape heuristic alone
+    would shard it."""
 
     def spec(path, leaf):
         if any(getattr(p, "key", None) == "shared" for p in path):
@@ -49,8 +50,7 @@ def make_mesh(n_devices: int | None = None, pixel: int = 1) -> Mesh:
 
     ``n_devices`` counts the NODE axis; total devices used =
     ``n_devices * pixel``. Consecutive devices land on the pixel axis (the
-    innermost, highest-bandwidth ICI neighbors carry the per-iteration
-    pixel all_gather)."""
+    per-iteration pixel all_gather runs between neighbouring devices)."""
     devices = jax.devices()
     n_node = n_devices if n_devices is not None else len(devices) // pixel
     need = n_node * pixel

@@ -3,14 +3,14 @@
 The reference has no transport at all (SURVEY §2.2); the sharded runtime in
 ``parallel.admm_sharded`` is host-count-agnostic — the node mesh axis simply
 spans all global devices, and XLA routes the ``all_to_all``/``psum``
-collectives over ICI within a host and DCN across hosts. This module holds
-the host-side plumbing that makes that work:
+collectives over NVLink within a host and the network across hosts. This
+module holds the host-side plumbing that makes that work:
 
 - ``initialize()``: ``jax.distributed`` bring-up (coordinator discovery via
   env or explicit args) — call once per process before any jax op.
 - ``global_mesh()``: a 1-D node mesh over all global devices, ordered so
   consecutive node blocks are intra-host first (keeps the heavy half of the
-  pair-transpose all_to_all on ICI).
+  pair-transpose all_to_all on NVLink).
 - ``distribute_problem()``: device_put every Problem array with its
   PartitionSpec so a multi-host jit consumes addressable shards only.
 
@@ -65,8 +65,8 @@ def problem_shardings(problem: Problem, mesh: Mesh):
 
     Table leaves use the SAME key-/shape-based rule as the shard_map
     runtime (``mesh.table_partition_specs``): per-node tables shard over
-    the node axis, node-shared geometry (fft_shear Phi twiddles, the fan
-    path's single-set parallel tables and rebin filters) replicates —
+    the node axis, node-shared geometry (fft_skew DFT/twiddle tables, the
+    fan path's single-set parallel tables and rebin filters) replicates —
     placement and in_specs can never disagree."""
     node = PS(NODE_AXIS)
     repl = PS()

@@ -71,11 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adapt-rho", action="store_true",
                    help="residual balancing (Boyd sec. 3.4.1): rho grows/"
                         "shrinks x--rho-tau when one residual dominates the "
-                        "other by x--rho-mu, duals rescaled. Measured "
-                        "many-node fan recipe (RESULTS.md config-5 study): "
-                        "START HIGH and let balancing trim — '--rho 20 "
-                        "--adapt-rho --rho-mu 2' matched-or-beat static "
-                        "rho=20; no policy recovers a low start post hoc")
+                        "other by x--rho-mu, duals rescaled. For many-node "
+                        "fan problems start high and let balancing trim "
+                        "(e.g. '--rho 20 --adapt-rho --rho-mu 2')")
     p.add_argument("--rho-mu", type=float, default=10.0,
                    help="residual dominance ratio that triggers a rho step")
     p.add_argument("--rho-tau", type=float, default=2.0,
@@ -88,18 +86,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "--rho-stall-tol over --rho-stall-window outers "
                         "(the quality-signal variant for the many-node fan "
                         "regime, where the dual dominates and balancing "
-                        "can only lower rho — RESULTS.md config-5 study)")
+                        "can only lower rho)")
     p.add_argument("--rho-stall-window", type=int, default=10)
     p.add_argument("--rho-stall-tol", type=float, default=0.02)
     p.add_argument("--recommended", action="store_true",
                    help="recommended operating point: circulant-metric "
                         "inner solver (fcv) + over-relaxation 1.8 + "
-                        "15-iteration inner budget (with the round-5 "
+                        "15-iteration inner budget (with the "
                         "Lanczos-certified step the preconditioner "
-                        "converges the node subproblems in ~15 iterations; "
-                        "measured 57.9 outer it/s at 256^2/8 and 11.2 at "
-                        "512^2/8 at the same PSNR as deeper budgets, "
-                        "RESULTS.md round-5 operating points)")
+                        "converges the node subproblems in ~15 iterations)")
     p.add_argument("--noise", type=float, default=0.005)
     p.add_argument("--phantom", choices=["const", "rand", "shepp"],
                    default="const")
@@ -116,19 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--matrix-free", action="store_true",
                    help="force the matrix-free projector (mode=fft)")
     p.add_argument("--mode",
-                   choices=["auto", "dense", "joseph", "fft", "fft_pallas",
-                            "fft_mxu", "fft_grouped", "fft_shear",
-                            "fft_skew"],
+                   choices=["auto", "dense", "joseph", "fft", "fft_skew"],
                    default="auto",
                    help="measurement-operator implementation (auto: dense "
-                        "for N<=128; above that fft_skew for both parallel "
-                        "and fan beam — the measured fastest, RESULTS.md "
-                        "A/B; fan rides the skew kernels through the "
-                        "rebinned parallel stage)")
-    p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction,
-                   default=None,
-                   help="fused Pallas edge-consensus kernel (default: auto — "
-                        "on when running on TPU with >= 8 nodes)")
+                        "for N<=128; above that the matrix-free projector "
+                        "measured fastest on the GPU, for parallel and fan "
+                        "beam)")
     p.add_argument("--fft-table-dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="storage dtype of the fft-projector phase tables")
@@ -198,15 +186,12 @@ def config_from_args(args) -> "ProblemConfig":
     eps_rel = getattr(args, "eps_rel", None)
     check_every = getattr(args, "check_every", None)
     if getattr(args, "recommended", False):
-        # Measured best operating point (RESULTS.md round-5 operating
-        # points): circulant-metric CV (fcv) + over-relaxation 1.8 +
-        # 15-inner budget, checked once at the cap. The round-5
-        # Lanczos-certified step (margin 0.95 vs the power method's 0.7)
-        # converges the node subproblems in ~15 iterations at the same
-        # PSNR the round-4 25-inner budget reached (256^2/8: 57.9 it/s,
-        # 512^2/8: 11.2 it/s, both at identical PSNR to 25-inner at 20
-        # and 100 outers). Explicit flags win over the preset (None =
-        # unset, so an explicit 0 sticks).
+        # Recommended operating point: circulant-metric CV (fcv) +
+        # over-relaxation 1.8 + 15-inner budget, checked once at the cap.
+        # The Lanczos-certified step (margin 0.95 vs the power method's
+        # 0.7) converges the node subproblems in ~15 iterations. Explicit
+        # flags win over the preset (None = unset, so an explicit 0
+        # sticks).
         if relax_alpha == 1.0:
             relax_alpha = 1.8
         if algorithm == "cv":
@@ -240,7 +225,6 @@ def config_from_args(args) -> "ProblemConfig":
             adapt_rho_mode=getattr(args, "rho_mode", "balance"),
             rho_stall_window=getattr(args, "rho_stall_window", 10),
             rho_stall_tol=getattr(args, "rho_stall_tol", 0.02),
-            use_pallas=getattr(args, "use_pallas", None),
             node=NodeSolverConfig(
                 max_inner=max_inner,
                 algorithm=algorithm,
@@ -266,7 +250,9 @@ def mode_from_args(args) -> "str | None":
     return None
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Run the experiment the flags describe; prints the per-strategy
+    summaries as JSON and returns them."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     out_root = args.out or (
@@ -349,6 +335,7 @@ def main(argv=None) -> None:
     else:
         results = go()
     print(json.dumps(results, indent=2, default=str))
+    return results
 
 
 if __name__ == "__main__":

@@ -42,6 +42,8 @@ import numpy as np
 from dip_admm_tpu.config import NodeSolverConfig
 from dip_admm_tpu.core import node_solver
 
+_HIGHEST = jax.lax.Precision.HIGHEST  # f32 dense operators, not TF32
+
 
 @dataclasses.dataclass
 class _Node:
@@ -172,12 +174,12 @@ def _solve_jit(
     # measurement operator, so one fwd/adj pair serves the whole term.
     sq = jnp.sqrt(diag)  # [P, n]
     base_fwd = (
-        (lambda x: jnp.einsum("pmn,pn->pm", A, x))
+        (lambda x: jnp.einsum("pmn,pn->pm", A, x, precision=_HIGHEST))
         if mf_ops is None
         else mf_ops[0]
     )
     base_adj = (
-        (lambda r: jnp.einsum("pmn,pm->pn", A, r))
+        (lambda r: jnp.einsum("pmn,pm->pn", A, r, precision=_HIGHEST))
         if mf_ops is None
         else mf_ops[1]
     )

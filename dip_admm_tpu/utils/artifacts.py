@@ -5,7 +5,9 @@ Host-side reproduction of the reference orchestrator's artifact set
 ``:110-168`` stationarity curves, ``:174-231`` objective/residual curves,
 ``:236-325`` residual/MSE plots and ``.npy`` dumps; plus the parameter text
 files at ``:38-57`` and ``block_6_admm_loop_ver2.py:291-306``). The device
-loop returns dense history arrays; everything here is numpy+matplotlib.
+loop returns dense history arrays; everything here is host-side numpy.
+``.npy`` arrays and ``run_parameters.txt`` are always written; plots only
+where matplotlib is installed (the ``plots`` extra).
 """
 
 from __future__ import annotations
@@ -17,10 +19,18 @@ from datetime import datetime
 
 import numpy as np
 
-import matplotlib
 
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend, or None when matplotlib is
+    not installed (plots are skipped, arrays still written)."""
+    try:
+        import matplotlib
+    except ImportError:
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 def _trim(history: dict, n_iters: int) -> dict:
@@ -44,9 +54,8 @@ def save_recons(x, N: int, out_dir: str, tag: str) -> None:
     """Per-node reconstruction images + arrays (ref ``:16-27``).
 
     Uses the native async writer (``utils.native_artifacts``) when the
-    toolchain is available — ~140x faster than the matplotlib render path
-    and non-blocking (flushed by :func:`flush_async`); falls back to
-    numpy+matplotlib otherwise.
+    toolchain is available — non-blocking (flushed by :func:`flush_async`);
+    falls back to numpy (+ matplotlib images where installed) otherwise.
     """
     os.makedirs(out_dir, exist_ok=True)
     x = np.asarray(x)
@@ -60,6 +69,9 @@ def save_recons(x, N: int, out_dir: str, tag: str) -> None:
             na.save_png_gray(os.path.join(out_dir, f"{tag}_node_{i}.png"), img)
             continue
         np.save(os.path.join(out_dir, f"{tag}_node_{i}.npy"), img)
+        plt = _pyplot()
+        if plt is None:
+            continue
         plt.figure(figsize=(5, 5))
         plt.imshow(img, cmap="gray")
         plt.title(f"{tag}  node {i}")
@@ -78,6 +90,9 @@ def flush_async() -> None:
 
 
 def _semilogy_per_node(arr, title, ylabel, path, floor=1e-12):
+    plt = _pyplot()
+    if plt is None:
+        return
     plt.figure(figsize=(6, 4))
     for i in range(arr.shape[1]):
         plt.semilogy(np.abs(arr[:, i]) + floor, label=f"node {i}")
@@ -91,6 +106,9 @@ def _semilogy_per_node(arr, title, ylabel, path, floor=1e-12):
 
 
 def _semilogy_total(arr, title, ylabel, path, floor=1e-12):
+    plt = _pyplot()
+    if plt is None:
+        return
     plt.figure(figsize=(6, 4))
     plt.semilogy(np.abs(np.asarray(arr)) + floor)
     plt.xlabel("iteration")
@@ -116,32 +134,9 @@ def save_mse_curves(curves: dict, out_dir: str) -> None:
             _semilogy_total(arr, name, name, path)
 
 
-def save_history_artifacts(
-    history: dict,
-    n_iters: int,
-    out_dir: str,
-    tag: str,
-    m_per_node: np.ndarray | None = None,
-    N: int | None = None,
-) -> list[str]:
-    """The full block-7 artifact set from a run history.
-
-    Sinogram MSE is normalized by m_i (ref ``:260-262``), image MSE by N^2
-    (ref ``:295-298``); residuals/objectives/stationarity norms are plotted
-    per node and total, and every curve is also saved as ``.npy``.
-    """
-    os.makedirs(out_dir, exist_ok=True)
-    h = _trim(history, n_iters)
-    written: list[str] = []
-
-    def saveit(name, arr):
-        p = os.path.join(out_dir, f"{tag}_{name}.npy")
-        np.save(p, arr)
-        written.append(p)
-        return arr
-
-    # Stationarity residual curves with eps-target overlay (ref :110-168).
-    g = saveit("g_norm_per_node", h["g_norm"])
+def _stationarity_plots(plt, g, h, out_dir, tag, written) -> None:
+    """Per-node stationarity with the eps-target overlay (ref :110-154)
+    and its mean/median (ref :155-168)."""
     plt.figure(figsize=(7, 4))
     ax1 = plt.gca()
     for i in range(g.shape[1]):
@@ -172,6 +167,54 @@ def save_history_artifacts(
     plt.close()
     written.append(p)
 
+
+def _residual_plot(plt, h, out_dir, tag, written) -> None:
+    """Global primal/dual residuals (ref :240-253)."""
+    plt.figure(figsize=(6, 4))
+    plt.semilogy(h["primal"], label="primal")
+    plt.semilogy(h["dual"], label="dual")
+    plt.xlabel("iteration")
+    plt.ylabel("L2 norm")
+    plt.title(f"Residuals, {tag}")
+    plt.legend()
+    plt.tight_layout()
+    p = os.path.join(out_dir, f"{tag}_residuals.png")
+    plt.savefig(p, dpi=160)
+    plt.close()
+    written.append(p)
+
+
+def save_history_artifacts(
+    history: dict,
+    n_iters: int,
+    out_dir: str,
+    tag: str,
+    m_per_node: np.ndarray | None = None,
+    N: int | None = None,
+) -> list[str]:
+    """The full block-7 artifact set from a run history.
+
+    Sinogram MSE is normalized by m_i (ref ``:260-262``), image MSE by N^2
+    (ref ``:295-298``); residuals/objectives/stationarity norms are plotted
+    per node and total, and every curve is also saved as ``.npy``.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    h = _trim(history, n_iters)
+    written: list[str] = []
+
+    def saveit(name, arr):
+        p = os.path.join(out_dir, f"{tag}_{name}.npy")
+        np.save(p, arr)
+        written.append(p)
+        return arr
+
+    plt = _pyplot()
+
+    # Stationarity residual curves with eps-target overlay (ref :110-168).
+    g = saveit("g_norm_per_node", h["g_norm"])
+    if plt is not None:
+        _stationarity_plots(plt, g, h, out_dir, tag, written)
+
     # Objectives (ref :174-203).
     obj_pn = saveit("obj_per_node", h["obj_per_node"])
     _semilogy_per_node(
@@ -199,18 +242,8 @@ def save_history_artifacts(
     # Global residuals (ref :240-253).
     saveit("primal_hist", h["primal"])
     saveit("dual_hist", h["dual"])
-    plt.figure(figsize=(6, 4))
-    plt.semilogy(h["primal"], label="primal")
-    plt.semilogy(h["dual"], label="dual")
-    plt.xlabel("iteration")
-    plt.ylabel("L2 norm")
-    plt.title(f"Residuals, {tag}")
-    plt.legend()
-    plt.tight_layout()
-    p = os.path.join(out_dir, f"{tag}_residuals.png")
-    plt.savefig(p, dpi=160)
-    plt.close()
-    written.append(p)
+    if plt is not None:
+        _residual_plot(plt, h, out_dir, tag, written)
 
     # Sinogram MSE normalized by m_i (ref :255-288).
     if m_per_node is not None:
@@ -255,7 +288,8 @@ def save_history_artifacts(
     if "rho" in h:
         rho = saveit("rho_hist", h["rho"])
         finite = rho[np.isfinite(rho)]
-        if finite.size and (finite.max() - finite.min()) > 1e-12:
+        moves = finite.size and (finite.max() - finite.min()) > 1e-12
+        if plt is not None and moves:
             plt.figure(figsize=(6, 4))
             plt.semilogy(rho)
             plt.xlabel("iteration")
@@ -280,6 +314,10 @@ def save_union_graph(adj, out_dir: str, tag: str) -> str:
     P = adj.shape[0]
     theta = 2 * np.pi * np.arange(P) / P
     xs, ys = np.cos(theta), np.sin(theta)
+    p = os.path.join(out_dir, f"pixel_union_graph_{tag}.png")
+    plt = _pyplot()
+    if plt is None:
+        return p
     plt.figure(figsize=(6, 6))
     for i in range(P):
         for j in range(i + 1, P):
@@ -290,7 +328,6 @@ def save_union_graph(adj, out_dir: str, tag: str) -> str:
         plt.text(xs[i], ys[i], str(i), ha="center", va="center", zorder=4)
     plt.axis("off")
     plt.title(f"pixel union graph, {tag}")
-    p = os.path.join(out_dir, f"pixel_union_graph_{tag}.png")
     plt.tight_layout()
     plt.savefig(p, dpi=160)
     plt.close()
@@ -317,6 +354,9 @@ def save_edge_map(x, N: int, path: str) -> None:
     gx[:-1, :] = img[1:, :] - img[:-1, :]
     gy[:, :-1] = img[:, 1:] - img[:, :-1]
     mag = np.sqrt(gx**2 + gy**2)
+    plt = _pyplot()
+    if plt is None:
+        return
     plt.figure(figsize=(5, 5))
     plt.imshow(mag, cmap="gray")
     plt.axis("off")

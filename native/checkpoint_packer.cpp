@@ -11,7 +11,7 @@
 //
 // Capability anchor: the reference's chunked checkpoint/resume orchestrator
 // (block_6_admm_loop_ver2.py:269-281 snapshot writes, SURVEY.md section 5
-// checkpoint/resume row); this is the TPU-native runtime half, in C++ like
+// checkpoint/resume row); this is the host runtime half, in C++ like
 // the rest of native/.
 //
 // C API (ctypes-friendly):

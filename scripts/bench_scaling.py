@@ -1,13 +1,10 @@
-"""Multi-chip scaling table, ready to run unmodified on real hardware
-(VERDICT r4 #8): given >= 2 chips, produces the BASELINE scaling table
-(1 chip -> n chips; node mesh and node x pixel legs) for the headline
-decentralized TV-LS problem. BASELINE.md north star: >= 80% scaling to
-2 hosts.
+"""Multi-device scaling table: given >= 2 devices, times the headline
+decentralized TV-LS problem on 1 device and on every mesh layout up to n
+devices (node mesh and node x pixel legs).
 
-On the single-chip bench host it degenerates to the 1-device row; the
-plumbing (mesh construction, sharded placement, steady-state timing) is
-validated by the virtual-mesh smoke test (tests/test_runners.py) so the
-first real-hardware round spends zero time on it.
+On one device it degenerates to the 1-device row; the plumbing (mesh
+construction, sharded placement, steady-state timing) is checked by the
+virtual-mesh smoke test (tests/test_runners.py).
 
 Usage:
   PYTHONPATH=. python scripts/bench_scaling.py [--N 256] [--nodes 8]

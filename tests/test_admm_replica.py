@@ -4,7 +4,7 @@ With lam_tv = 0 the node subproblem (eq. 1) has the closed form
     x_i = (A_i^T A_i + rho diag(D_i))^{-1} (A_i^T b_i + rho b_cons_i),
 so a direct numpy implementation of the reference's update equations
 (``/root/reference/block_6_admm_loop_ver2.py:210-264``) gives exact
-trajectories to compare the TPU loop against — primal/dual residual curves
+trajectories to compare the JAX loop against — primal/dual residual curves
 and iterates must match when the inner solver is run to tight tolerance.
 """
 

@@ -39,33 +39,6 @@ def test_fan_fft_mode_reconstructs():
     assert pri[-1] < 0.1 * pri[:5].max()
 
 
-def test_fan_grouped_mode_matches_fft_mode():
-    """mode=fft_grouped on a fan problem (grouped parallel stage + rebin)
-    reproduces the mode=fft fan trajectory."""
-    cfg = ProblemConfig(
-        geometry=GeometryConfig(
-            N=16, num_nodes=2, angles_total=64, fan_beam=True,
-            det_width_factor=2.0, src_radius=4.0, det_radius=4.0,
-        ),
-        graph=GraphConfig(strategy="complete", k=0, seed=123),
-        admm=AdmmConfig(
-            lam_tv=0.02, rho=2.0, max_iters=8, eps_pri=1e-9, eps_dual=1e-9,
-            node=NodeSolverConfig(max_inner=60, check_every=20),
-        ),
-        noise_level=0.002,
-        phantom="const",
-    )
-    r_fft = admm.run_admm(loader.build_problem(cfg, mode="fft"))
-    r_grp = admm.run_admm(loader.build_problem(cfg, mode="fft_grouped"))
-    np.testing.assert_allclose(
-        np.asarray(r_grp.x), np.asarray(r_fft.x), rtol=2e-3, atol=2e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(r_grp.history["primal"]),
-        np.asarray(r_fft.history["primal"]), rtol=2e-3, atol=1e-4,
-    )
-
-
 def test_fan_skew_mode_matches_fft_mode():
     """mode=fft_skew on a fan problem (factored-shear parallel stage on the
     rebinned grid + rebin tail) reproduces the mode=fft fan trajectory."""

@@ -100,16 +100,17 @@ def test_config5_shape_fan_32nodes():
 
 
 def test_distribute_fft_shear_placement_and_parity():
-    # The production parallel-beam projector (fft_shear) has node-SHARED
-    # twiddle leaves (Phi*/PhiD* [D2, F]); distribute_problem must replicate
-    # them (same rule as the runtime's in_specs) and the sharded run from
-    # the distributed arrays must match single-device.
-    problem = _problem(P=8, N=16, mode="fft_shear")
+    # The factored parallel-beam projector (fft_skew) has node-SHARED
+    # leaves (the DFT-back D* [L, F] and tail twiddles PhiD* [D2p, F]);
+    # distribute_problem must replicate them (same rule as the runtime's
+    # in_specs) and the sharded run from the distributed arrays must match
+    # single-device.
+    problem = _problem(P=8, N=16, mode="fft_skew")
     mesh = multihost.global_mesh(4)
     dist = multihost.distribute_problem(problem, mesh)
-    for key in ("Phire", "Phiim", "PhiDre", "PhiDim"):
+    for key in ("Dre", "Dim", "PhiDre", "PhiDim"):
         assert dist.fft_tables["shared"][key].sharding.is_fully_replicated, key
-    for key in ("Wt", "SEre", "plane"):
+    for key in ("WtT", "SEre", "plane"):
         assert not dist.fft_tables[key].sharding.is_fully_replicated, key
     got = admm_sharded.run_admm_sharded(dist, mesh=mesh)
     ref = admm.run_admm(problem)
@@ -119,8 +120,8 @@ def test_distribute_fft_shear_placement_and_parity():
 
 
 def test_distribute_fan_grouped_placement_and_parity():
-    # The production fan projector (fft_grouped): the single-set parallel
-    # tables ("par" subtree) and rebin/DFT filters are node-shared.
+    # The fan projector (fft_skew): the single-set parallel tables ("par"
+    # subtree) and rebin/DFT filters are node-shared.
     cfg = ProblemConfig(
         geometry=GeometryConfig(
             N=16, num_nodes=8, angles_total=64, fan_beam=True,
@@ -133,7 +134,7 @@ def test_distribute_fan_grouped_placement_and_parity():
         ),
         phantom="const",
     )
-    problem = loader.build_problem(cfg, mode="fft_grouped")
+    problem = loader.build_problem(cfg, mode="fft_skew")
     mesh = multihost.global_mesh(4)
     dist = multihost.distribute_problem(problem, mesh)
     import jax as _jax
@@ -149,14 +150,14 @@ def test_distribute_fan_grouped_placement_and_parity():
 
 
 def test_shared_leaf_leading_dim_collision():
-    # A 16-node graph makes the fft_shear twiddles' leading dim (D2=16 at
-    # small nb) EQUAL to the node count — the shape heuristic alone would
+    # A 16-node graph makes the fft_skew tail twiddles' leading dim (D2p=16
+    # at small N) EQUAL to the node count — the shape heuristic alone would
     # shard them. The key-based rule must still replicate.
-    problem = _problem(P=16, N=8, mode="fft_shear")
-    assert problem.fft_tables["shared"]["Phire"].shape[0] == 16  # collision
+    problem = _problem(P=16, N=8, mode="fft_skew")
+    assert problem.fft_tables["shared"]["PhiDre"].shape[0] == 16  # collision
     mesh = multihost.global_mesh(8)
     dist = multihost.distribute_problem(problem, mesh)
-    assert dist.fft_tables["shared"]["Phire"].sharding.is_fully_replicated
+    assert dist.fft_tables["shared"]["PhiDre"].sharding.is_fully_replicated
     got = admm_sharded.run_admm_sharded(dist, mesh=mesh)
     ref = admm.run_admm(problem)
     np.testing.assert_allclose(

@@ -311,11 +311,11 @@ def test_problem_roundtrip_with_tables(tmp_path):
     cfg = dataclasses.replace(
         _cfg(max_iters=4), fft_table_dtype="bfloat16"
     )
-    problem = loader.build_problem(cfg, mode="fft_shear")
+    problem = loader.build_problem(cfg, mode="fft_skew")
     path = str(tmp_path / "problem_tbl.npz")
     serialization.save_problem(problem, path)
     loaded = serialization.load_problem(path)
-    assert loaded.mode == "fft_shear"
+    assert loaded.mode == "fft_skew"
     jax.tree.map(
         lambda a, b: np.testing.assert_array_equal(
             np.asarray(a), np.asarray(b)

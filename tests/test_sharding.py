@@ -62,6 +62,28 @@ def test_pair_transpose_matches_local():
     np.testing.assert_array_equal(np.asarray(out), np.asarray(A.swapaxes(0, 1)))
 
 
+@pytest.mark.parametrize("n_node, pixel", [(4, 1), (2, 2), (4, 2)])
+def test_inner_loop_flag_agrees_on_every_device(n_node, pixel):
+    """The inner loop's continue flag steers control flow around the
+    projector's pixel-axis collectives: one device still unconverged keeps
+    every device of the mesh in the loop, pixel replicas included."""
+    from jax.sharding import PartitionSpec as PS
+
+    m = meshlib.make_mesh(n_node, pixel=pixel)
+    spec = PS(*m.axis_names)
+    comm = admm_sharded.comm_ops(pixel, n_loc=1)
+    f = jax.jit(jax.shard_map(
+        lambda v: comm.any_reduce(v.reshape(())).reshape((1,) * v.ndim),
+        mesh=m, in_specs=spec, out_specs=spec, check_vma=False,
+    ))
+    shape = (n_node, pixel) if pixel > 1 else (n_node,)
+    none = np.zeros(shape, bool)
+    one = none.copy()
+    one.flat[-1] = True  # the last pixel replica of the last node block
+    assert not np.asarray(f(jnp.asarray(none))).any()
+    assert np.asarray(f(jnp.asarray(one))).all()
+
+
 @pytest.mark.parametrize("n_dev", [2, 4])
 def test_sharded_matches_single_device(n_dev):
     problem = make_problem(P=4)
@@ -163,45 +185,12 @@ def test_sharded_snapshots(tmp_path):
     assert "iter_0004_node_0.npy" in names
 
 
-def test_sharded_matches_single_device_fft_pallas():
-    # The Pallas projector mode must compose with the shard_map runtime
-    # (interpret-mode kernels inside shard_map on the virtual mesh).
-    import numpy as np
-
-    from dip_admm_tpu.config import (
-        AdmmConfig,
-        GeometryConfig,
-        GraphConfig,
-        NodeSolverConfig,
-        ProblemConfig,
-    )
-    from dip_admm_tpu.core import admm
-    from dip_admm_tpu.data import loader
-    from dip_admm_tpu.parallel import admm_sharded
-    from dip_admm_tpu.parallel.mesh import make_mesh
-
-    cfg = ProblemConfig(
-        geometry=GeometryConfig(N=16, num_nodes=8, angles_total=48),
-        graph=GraphConfig(strategy="knn", k=1),
-        admm=AdmmConfig(
-            max_iters=3, eps_pri=1e-9, eps_dual=1e-9,
-            node=NodeSolverConfig(max_inner=20, check_every=10),
-        ),
-    )
-    problem = loader.build_problem(cfg, mode="fft_pallas")
-    r1 = admm.run_admm(problem)
-    r8 = admm_sharded.run_admm_sharded(problem, mesh=make_mesh(8))
-    np.testing.assert_allclose(
-        np.asarray(r8.x), np.asarray(r1.x), rtol=1e-4, atol=1e-5
-    )
-
-
 def test_sharded_fft_grouped_parity():
-    """The auto-default large-N projector (fft_grouped) through the shard_map
-    driver: grouped tables (incl. the slot-plan index arrays) shard on the
-    node axis and reproduce the single-device run."""
+    """The dense-phase-table projector (fft) through the shard_map driver:
+    its per-node tables shard on the node axis and reproduce the
+    single-device run."""
     problem = make_problem(P=4)
-    grp = loader.build_problem(problem.cfg, mode="fft_grouped")
+    grp = loader.build_problem(problem.cfg, mode="fft")
     m = meshlib.make_mesh(4)
     got = admm_sharded.run_admm_sharded(grp, mesh=m)
     ref = admm.run_admm(grp)
@@ -216,11 +205,20 @@ def test_sharded_fft_grouped_parity():
 
 
 def test_sharded_fft_shear_parity():
-    """fft_shear tables mix per-node leaves (Wt, SE, plan) with node-shared
-    geometry (the Phi twiddle table): the shape-based table specs must
-    shard the former and replicate the latter."""
+    """fft_skew tables with bf16 storage mix per-node leaves (WtT, SE, Wd,
+    plan) with node-shared geometry (the DFT-back and twiddle tables): the
+    table specs must shard the former and replicate the latter. The inner
+    budget is fixed (no acceptance or plateau exit): bf16 rounding moves
+    near-threshold acceptance decisions between the two batchings, and a
+    flipped decision changes the trajectory, not the placement."""
     problem = make_problem(P=4)
-    sh = loader.build_problem(problem.cfg, mode="fft_shear")
+    c = problem.cfg
+    node = dataclasses.replace(c.admm.node, eps0=0.0, plateau_tol=0.0)
+    bf16 = dataclasses.replace(
+        c, fft_table_dtype="bfloat16",
+        admm=dataclasses.replace(c.admm, node=node),
+    )
+    sh = loader.build_problem(bf16, mode="fft_skew")
     m = meshlib.make_mesh(4)
     got = admm_sharded.run_admm_sharded(sh, mesh=m)
     ref = admm.run_admm(sh)
@@ -235,9 +233,8 @@ def test_sharded_fft_shear_parity():
 
 
 def test_sharded_fft_skew_parity():
-    """fft_skew (the promoted auto default) shares fft_shear's tables —
-    including the node-shared skew DFT-back matrices, which must replicate
-    while Wt/SE/plan shard by node."""
+    """fft_skew on the node mesh: the node-shared skew DFT-back matrices
+    replicate while WtT/SE/plan shard by node."""
     problem = make_problem(P=4)
     sk = loader.build_problem(problem.cfg, mode="fft_skew")
     m = meshlib.make_mesh(4)
@@ -250,8 +247,8 @@ def test_sharded_fft_skew_parity():
 
 
 def test_sharded_fan_grouped_parity():
-    """Fan-beam fft_grouped on the mesh: the shared single-set parallel
-    tables replicate, per-node row masks shard."""
+    """Fan-beam fft (per-node rebin tables) on the mesh: every table leaf
+    shards by node."""
     cfg = ProblemConfig(
         geometry=GeometryConfig(
             N=12, num_nodes=4, angles_total=32, fan_beam=True,
@@ -265,7 +262,7 @@ def test_sharded_fan_grouped_parity():
         noise_level=0.002,
         phantom="const",
     )
-    fan = loader.build_problem(cfg, mode="fft_grouped")
+    fan = loader.build_problem(cfg, mode="fft")
     m = meshlib.make_mesh(4)
     got = admm_sharded.run_admm_sharded(fan, mesh=m)
     ref = admm.run_admm(fan)
@@ -327,8 +324,8 @@ def test_pixel_axis_resume_exact():
 
 
 def test_pixel_axis_fan_grouped():
-    # 2-D mesh with the production fan projector: node-shared table subtree
-    # replicates while the edge state shards along pixels.
+    # 2-D mesh with the fan fft projector (no pixel-compute sharding): the
+    # tables shard by node only while the edge state shards along pixels.
     cfg = ProblemConfig(
         geometry=GeometryConfig(
             N=16, num_nodes=4, angles_total=32, fan_beam=True,
@@ -341,7 +338,7 @@ def test_pixel_axis_fan_grouped():
         ),
         phantom="const",
     )
-    problem = loader.build_problem(cfg, mode="fft_grouped")
+    problem = loader.build_problem(cfg, mode="fft")
     m2 = meshlib.make_mesh(4, pixel=2)
     got = admm_sharded.run_admm_sharded(problem, mesh=m2)
     ref = admm.run_admm(problem)
@@ -486,23 +483,6 @@ def test_pixel_compute_rowshard_fcv_parity():
     )
 
 
-def test_run_admm_auto_mesh_matches():
-    """run_admm_auto over a mesh (the default CLI path with --mesh) is
-    bit-identical to the unsegmented sharded run."""
-    problem = make_problem(P=4)
-    m = meshlib.make_mesh(4)
-    ref = admm_sharded.run_admm_sharded(problem, mesh=m)
-    got = admm.run_admm_auto(
-        problem, mesh=m, target_wall_s=1e-9, probe_iters=2
-    )
-    assert int(got.n_iters) == int(ref.n_iters)
-    np.testing.assert_array_equal(np.asarray(got.x), np.asarray(ref.x))
-    for name, v in ref.history.items():
-        np.testing.assert_array_equal(
-            np.asarray(got.history[name]), np.asarray(v), err_msg=name
-        )
-
-
 def test_sharded_adapt_rho_parity():
     """Residual balancing on the node mesh: the balancing factor derives
     from psummed residuals, so every shard adapts in lockstep and the
@@ -557,8 +537,8 @@ def test_sharded_adapt_rho_stall_parity():
 
 
 def test_pixel_compute_rowshard_fan_parity():
-    """Fan-beam pixel-COMPUTE sharding (VERDICT r4 #4): the fan path rides
-    the same row-sharded skew kernels through its shared parallel stage
+    """Fan-beam pixel-COMPUTE sharding: the fan path rides the same
+    row-sharded skew stage through its shared parallel stage
     (tables under shared.par shard along NB over the pixel axis; the
     angular rebin tail stays replicated). Must reproduce the single-device
     run and actually engage the fan row-sharded path."""
